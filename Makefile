@@ -1,7 +1,7 @@
 # Developer conveniences (the reference wraps catkin/cmake; here: pytest,
 # bench, and the native library build).
 
-.PHONY: all test test-tpu bench bench-quick native clean
+.PHONY: all test test-device bench bench-quick native clean
 
 all: native
 
@@ -11,15 +11,15 @@ native:
 
 # Suite runs split across 4 worker processes (pytest-xdist, one file per
 # worker at a time): a full single-process run accumulates hundreds of
-# compiled XLA:CPU programs and eventually trips a native-codegen
-# segfault inside LLVM (ROUND_NOTES r5 item 6); per-worker state stays
-# far below the threshold, and the wall clock drops ~2x as a bonus.
+# compiled XLA:CPU programs and has tripped a native-codegen segfault
+# inside LLVM; per-worker state stays far below that, and the wall clock
+# drops ~2x as a bonus.
 test:
 	python -m pytest tests/ -q -n 4 --dist loadfile
 
-# On-device parity lane (tests/test_tpu_parity.py): needs a real TPU.
-test-tpu:
-	NAUTILUS_TPU_TESTS=1 python -m pytest tests -m tpu -q
+# On-device parity lane (tests/test_device_parity.py): needs a GPU.
+test-device:
+	NAUTILUS_DEVICE_TESTS=1 python -m pytest tests -m device -q
 
 bench:
 	python bench.py

@@ -1,36 +1,32 @@
 #!/usr/bin/env python
 """A/B of association formulations at compute-dominated scale (N=20000).
 
-benchmarks/mfu_large_n.py attributed ~250 ms/window (~2.5 s of the 7 s
-N=20000 sweep) to `associate`, at ~0% MFU.  Hypothesis: the [Q, S, T]
-distance matrix (S = T = 20 planar / 10 edge) puts a tiny dim on the
-128-wide lane axis — 6.4x physical padding on every elementwise pass —
-and the argmin + take_along_axis pair reads it twice.
+Question: does the [Q, S, T] distance matrix (S = T = 20 planar / 10
+edge), which puts a tiny dim minor, cost more than a pair-minor layout,
+and does the argmin + take_along_axis pair read it twice?  The
+pair-minor layout (C) won on an earlier accelerator with 128-wide lanes;
+this re-runs the A/B on the current device.
 
 Variants (all must match the production path EXACTLY — same fp ops in
 the same order per element, first-min argmin semantics):
 
-  A  legacy layout (broadcast diff, [Q, S, T], take_along_axis) — this
-     WAS production until the C measurement below flipped the default
-     (correspond.associate now ships the pair-minor form; A is frozen
-     here inline so the A/B stays reproducible)
+  A  legacy layout (broadcast diff, [Q, S, T], take_along_axis) — frozen
+     here inline so the A/B stays reproducible (correspond.associate
+     ships the pair-minor form C)
   B  A but dmin via jnp.min (multi-output reduce fusion, no gather)
   C  pair-minor layout: everything computed as [S, T, Q] / [S, Q] with
-     Q on lanes; matches gathered by one-hot contraction over T.
+     Q minor; matches gathered by one-hot contraction over T.
      == the shipped correspond.associate (parity-tested in
      tests/test_solver.py::test_pair_minor_layout_matches_oracle).
 
-Run on the real TPU:  python benchmarks/assoc_ab.py [--nodes 20000]
+Run on the GPU:  python benchmarks/assoc_ab.py [--nodes 20000]
 """
 import argparse
-import os
-import pickle
-import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import _common
 
 import jax
 import jax.numpy as jnp
@@ -139,14 +135,11 @@ def main():
     ap.add_argument("--nodes", type=int, default=20000)
     ap.add_argument("--beams", type=int, default=360)
     ap.add_argument("--variants", default="ABC",
-                    help="subset of ABC to run (a wedged relay compile "
-                         "should not mask the other variants)")
+                    help="subset of ABC to run")
     ap.add_argument("--no-parity", action="store_true")
     args = ap.parse_args()
 
-    cache = f"/tmp/mfu_problem_{args.nodes}_{args.beams}.pkl"
-    with open(cache, "rb") as f:
-        state = pickle.load(f)
+    state = _common.building_problem(args.nodes, args.beams)
     problem = state.problem
     n = state.num_nodes
     pairs = correspond.make_pairs(n, 10)

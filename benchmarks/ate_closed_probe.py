@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Probe: does the full system (solve -> auto-LC apply -> re-solve) beat raw
-odometry in ATE on the bench workload?  (VERDICT r4 item 1.)
+odometry in ATE on the bench workload?
 
 Usage: python benchmarks/ate_closed_probe.py [--nodes N] [--cpu] [--noise T R]
 """
@@ -23,6 +23,8 @@ def main():
                     help="use the descriptor pre-gate")
     args = ap.parse_args()
     if args.cpu:
+        # Force the CPU backend via the config as well as the env var, in
+        # case jax was imported first; ATE needs no device.
         import jax
         jax.config.update("jax_platforms", "cpu")
 

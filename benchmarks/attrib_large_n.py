@@ -1,19 +1,18 @@
 """Attribute the large-N per-iteration cost: assembly vs damped band solve.
 
-The whole-sweep trace aggregates everything into nested while ops
-(benchmarks/profile_large_n.py), so this times the two halves of one LM
-iteration directly at the max window:
+A whole-sweep trace aggregates everything into nested while ops, so this
+times the two halves of one LM iteration directly at the max window:
 
   A  assemble_banded_system(x, graph, layout)   (linearize + band accumulate)
   B  solve_damped_banded(sys, fixed, radius)    (gauge + factor + solves)
 
-Run on the real TPU: python benchmarks/attrib_large_n.py [--nodes 5000]
+Run on the GPU: python benchmarks/attrib_large_n.py [--nodes 5000]
 """
 import argparse
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+import _common
 
 import numpy as np
 import jax
@@ -36,29 +35,12 @@ def main():
     ap.add_argument("--beams", type=int, default=360)
     args = ap.parse_args()
 
-    from nautilus_tpu.core.luaconf import load_config
-    from nautilus_tpu.ingest.synthetic import make_problem
     from nautilus_tpu.solve.solver import Solver
     from nautilus_tpu.solve.factors import assemble_banded_system
     from nautilus_tpu.solve.band import solve_damped_banded
 
-    cfg = load_config("/root/repo/config/default_config.lua")
-    # The synthetic raycast at N=5000 is ~10 min of host time; cache the
-    # built problem across probe runs (probe-only convenience).
-    import pickle, os
-    cache = f"/tmp/attrib_problem_{args.nodes}_{args.beams}.pkl"
-    t0 = time.perf_counter()
-    if os.path.exists(cache):
-        with open(cache, "rb") as f:
-            state = pickle.load(f)
-        print(f"problem loaded from cache: {time.perf_counter()-t0:.0f}s")
-    else:
-        state, _ = make_problem(num_nodes=args.nodes, world_kind="building",
-                                num_beams=args.beams, seed=1,
-                                odom_noise_trans=0.02, odom_noise_rot=0.008)
-        with open(cache, "wb") as f:
-            pickle.dump(state, f)
-        print(f"problem build: {time.perf_counter()-t0:.0f}s")
+    cfg = _common.default_config()
+    state = _common.building_problem(args.nodes, args.beams)
 
     solver = Solver(state, cfg)
     w = cfg.get_int("lidar_constraint_amount_max")

@@ -1,13 +1,12 @@
 """Probe: coarse-correlation formulations for the stage-major CSM engine.
 
-The coarse rot-chunk scan step is the dominant in-program cost (32 of
-66 ms device time, benchmarks/profile_csm_sm.py) and is HBM-bound on the
-im2col patches ([C, 225, 40000] f32 = 144 MB re-read every scan step).
-Variants measured here at production shapes (C=4, rc=32, table 214^2,
-kernel 200^2, offsets 15^2):
+The coarse rot-chunk scan step re-reads the im2col patches
+([C, 225, 40000] f32 = 144 MB) every scan step, so it is expected to be
+memory-bound.  Variants timed here at production shapes (C=4, rc=32,
+table 214^2, kernel 200^2, offsets 15^2):
 
-  A  im2col einsum f32 HIGHEST      (current production)
-  B  im2col einsum bf16 operands    (half the patch traffic)
+  A  im2col einsum f32 HIGHEST      (CSMParams(coarse_f32=True))
+  B  im2col einsum bf16 operands    (the default: half the patch traffic)
   C  grouped conv f32 HIGHEST      (no patch materialization at all)
   D  grouped conv default precision
 
@@ -15,12 +14,11 @@ Argmax agreement vs A is checked for each variant over random tables —
 the coarse stage only picks a cell for refinement, so argmax parity is
 the correctness bar (final scores come from the fine stages).
 
-Run on the real TPU: python benchmarks/csm_coarse_probe.py
+Run on the GPU: python benchmarks/csm_coarse_probe.py
 """
-import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+import _common  # noqa: F401
 
 import numpy as np
 import jax

@@ -5,18 +5,16 @@ The staged plan (solver._staged_sweep_plan) runs the early windows
 PREFIX, then the late windows (w_mid+1..w_max) in the full-width program.
 Assembly cost is ~proportional to the pair count, so the early stage does
 ~half the linearization work per iteration — at the cost of one extra
-program dispatch and (first run only) one extra relay compile.
+program dispatch and (first run only) one extra compile.  Decides
+solver.STAGED_FUSED_MIN_N.
 
-Run on the real TPU:  python benchmarks/staged_fused_bench.py [--nodes 5000]
-Reuses the problem cache written by benchmarks/attrib_large_n.py.
+Run on the GPU:  python benchmarks/staged_fused_bench.py [--nodes 5000]
+Reuses the problem cache of benchmarks/_common.py.
 """
 import argparse
-import os
-import pickle
-import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+import _common
 
 
 def main():
@@ -29,24 +27,10 @@ def main():
                          "instead of the fused sweep")
     args = ap.parse_args()
 
-    from nautilus_tpu.core.luaconf import load_config
-    from nautilus_tpu.ingest.synthetic import make_problem
     from nautilus_tpu.solve.solver import Solver
 
-    cfg = load_config("/root/repo/config/default_config.lua")
-    cache = f"/tmp/attrib_problem_{args.nodes}_{args.beams}.pkl"
-    t0 = time.perf_counter()
-    if os.path.exists(cache):
-        with open(cache, "rb") as f:
-            state = pickle.load(f)
-        print(f"problem loaded from cache: {time.perf_counter()-t0:.0f}s")
-    else:
-        state, _ = make_problem(num_nodes=args.nodes, world_kind="building",
-                                num_beams=args.beams, seed=1,
-                                odom_noise_trans=0.02, odom_noise_rot=0.008)
-        with open(cache, "wb") as f:
-            pickle.dump(state, f)
-        print(f"problem build: {time.perf_counter()-t0:.0f}s")
+    cfg = _common.default_config()
+    state = _common.building_problem(args.nodes, args.beams)
 
     x0 = state.solution.copy()
 

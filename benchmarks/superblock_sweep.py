@@ -1,22 +1,19 @@
 """Sweep the band solver's superblock size at large N.
 
 The block-tridiagonal factorization + solves run as sequential lax.scans
-over K = ceil(N/s) superblocks; at N=5000 the damped solve is ~30 ms
-(benchmarks/attrib_large_n.py) and scales with scan DEPTH, not FLOPs —
-each step's 3s x 3s Cholesky is tiny.  Larger s trades more parallel
-work per step for fewer sequential steps.  This times
-solve_damped_banded at several s on the real TPU.
+over K = ceil(N/s) superblocks, so the damped solve scales with scan
+DEPTH, not FLOPs — each step's 3s x 3s Cholesky is tiny.  Larger s
+trades more parallel work per step for fewer sequential steps.  This
+times solve_damped_banded at several s, for the scan and cyclic-reduction
+backends (decides band.CR_MIN_NODES).
 
-Run: python benchmarks/superblock_sweep.py [--nodes 5000]
-(reuses the problem cache written by attrib_large_n.py)
+Run on the GPU: python benchmarks/superblock_sweep.py [--nodes 5000]
+(reuses the problem cache of benchmarks/_common.py)
 """
 import argparse
-import pickle
-import os
-import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+import _common
 
 import numpy as np
 import jax
@@ -31,27 +28,16 @@ def main():
                     default=[16, 32, 64, 128])
     ap.add_argument("--methods", nargs="+", default=["scan", "cr"],
                     choices=["scan", "cr"],
-                    help="factorization backends to A/B (verdict r3 #7: "
-                         "sequential lax.scan vs block cyclic reduction)")
+                    help="factorization backends to A/B (sequential "
+                         "lax.scan vs block cyclic reduction)")
     args = ap.parse_args()
 
-    from nautilus_tpu.core.luaconf import load_config
-    from nautilus_tpu.ingest.synthetic import make_problem
     from nautilus_tpu.solve.solver import Solver
     from nautilus_tpu.solve.factors import assemble_banded_system
     from nautilus_tpu.solve.band import solve_damped_banded
 
-    cfg = load_config("/root/repo/config/default_config.lua")
-    cache = f"/tmp/attrib_problem_{args.nodes}_{args.beams}.pkl"
-    if os.path.exists(cache):
-        with open(cache, "rb") as f:
-            state = pickle.load(f)
-    else:
-        state, _ = make_problem(num_nodes=args.nodes, world_kind="building",
-                                num_beams=args.beams, seed=1,
-                                odom_noise_trans=0.02, odom_noise_rot=0.008)
-        with open(cache, "wb") as f:
-            pickle.dump(state, f)
+    cfg = _common.default_config()
+    state = _common.building_problem(args.nodes, args.beams)
 
     solver = Solver(state, cfg)
     w = cfg.get_int("lidar_constraint_amount_max")

@@ -6,7 +6,7 @@ multi-resolution correlative matching algorithm as kernels/csm.py — coarse
 log-occupancy table, then a direct-Gaussian refinement pyramid — written
 as an optimized CPU program (vectorized numpy; BLAS matmul for the
 correlation, cKDTree for neighbor selection).  It produces the SAME
-scores/transforms as the TPU engine (parity-tested), so its wall clock is
+scores/transforms as the device engine (parity-tested), so its wall clock is
 the honest CPU cost of the deliverable and bench.py's
 scan_match_speedup_vs_cpu is an apples-to-apples number.
 
@@ -37,7 +37,7 @@ def _smear_log_table(raster, res, sigma):
     radius = max(int(round(3 * sigma / res)), 1)
     xs = np.arange(-radius, radius + 1, dtype=np.float32) * res
     kern = np.exp(-0.5 * (xs / sigma) ** 2)
-    # Separable blur with zero padding (matches the TPU engine's conv).
+    # Separable blur with zero padding (matches the device engine's conv).
     pad = np.pad(raster, ((radius, radius), (0, 0)))
     img = np.einsum("k,kij->ij", kern,
                     np.stack([pad[i:i + raster.shape[0]]
@@ -121,7 +121,7 @@ def csm_match_cpu(cloud_a, cloud_b, params: CSMParams = CSMParams(),
     best = float(scores_lo[r0, oy0, ox0])
 
     # Refinement pyramid: K nearest target points per coarse-aligned source
-    # point, shared across stages (same structure as the TPU engine).
+    # point, shared across stages (same structure as the device engine).
     _, mid_res, _ = _stage_resolutions(params)
     aligned = _rotate(cloud_a, theta) + np.array([tx, ty], np.float32)
     k = min(params.fine_k, len(cloud_b)) or 1
@@ -137,7 +137,7 @@ def csm_match_cpu(cloud_a, cloud_b, params: CSMParams = CSMParams(),
          mid_res, mid_res / params.scan_range),
     ]
     for res_s, rot_step, prev_res, prev_rot_step in stages:
-        # Shared with the TPU engines so the twins cannot drift.
+        # Shared with the device engines so the twins cannot drift.
         n_rot = _fine_rot_count(prev_rot_step, rot_step)
         thetas = theta + (np.arange(n_rot) - n_rot // 2) * rot_step
         offset_cells = int(round(prev_res / res_s))

@@ -386,7 +386,7 @@ def solve_slam(prob: CpuProblem, x0, cfg,
 
 # ---------------------------------------------------------------------------
 # HITL curation twin (reference HitlCallback, solver.cc:534-559) — used by
-# bench.py to give the TPU engine's hitl_callback a CPU baseline.
+# bench.py to give the device engine's hitl_callback a CPU baseline.
 # ---------------------------------------------------------------------------
 
 def select_hitl(prob: CpuProblem, x, line_a, line_b, width, threshold):

@@ -61,9 +61,10 @@ def rot2d(theta):
 def _rot_apply(theta, points):
     """Rotate points [..., 2] by theta (broadcast).
 
-    Written elementwise (not as a 2x2 matmul) so it runs on the VPU at full
-    f32 precision — TPU matmuls default to bf16 inputs, which is far too
-    coarse for pose arithmetic.
+    Written elementwise (not as a 2x2 matmul) so it runs at full f32
+    precision whatever the backend's default matmul precision: a GPU may
+    round f32 matmul operands to TF32 (~3 decimal digits), far too coarse
+    for pose arithmetic.
     """
     c, s = jnp.cos(theta), jnp.sin(theta)
     x, y = points[..., 0], points[..., 1]

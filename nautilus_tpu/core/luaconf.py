@@ -260,8 +260,15 @@ def _exec_lua_file(path: Path, env: Dict[str, Any], seen: set):
                 if target is None:
                     raise LuaConfigError(f"Cannot resolve require({m.group('require')!r}) from {path}")
             else:
-                fname = m.group("dofile") or m.group("dofile2")
-                target = path.parent / Path(fname).name
+                # A plain absolute filename is taken as given; anything
+                # else (incl. the `source:match(...) .. '/x.lua'` idiom)
+                # resolves next to the including file.
+                only = re.match(r"""^\s*dofile\s*\(\s*['"]([^'"]+)['"]\s*\)""",
+                                line)
+                plain = Path(only.group(1) if only else "")
+                fname = Path(m.group("dofile") or m.group("dofile2"))
+                target = (plain if plain.is_absolute()
+                          else path.parent / fname.name)
             _exec_lua_file(target, env, seen)
             continue
         if m := _ASSIGN_RE.match(line):

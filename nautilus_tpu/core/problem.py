@@ -1,4 +1,4 @@
-"""Flat-array problem schema — the TPU-native replacement for slam_types.
+"""Flat-array problem schema — the device-side replacement for slam_types.
 
 The reference keeps per-node C++ objects with per-scan KD-trees and point
 vectors (reference src/util/slam_types.h:41-190).  Here the whole pose graph
@@ -137,8 +137,10 @@ class RawNodes(NamedTuple):
 def pad_clouds(clouds, pad_multiple: int = 128):
     """Stack variable-length clouds [ni, 2] into [N, P, 2] + mask.
 
-    P is the max cloud size rounded up to ``pad_multiple`` (lane-aligned so
-    downstream [P, P] distance matrices tile cleanly on the VPU/MXU).
+    P is the max cloud size rounded up to ``pad_multiple`` so a handful of
+    padded shapes serve every problem.  The default of 128 was chosen for
+    an earlier accelerator's tiling and has not been measured on the H100
+    yet (ROADMAP.md section 1, core solve layers).
     """
     n = len(clouds)
     max_pts = max((c.shape[0] for c in clouds), default=0)
@@ -155,11 +157,11 @@ def pad_clouds(clouds, pad_multiple: int = 128):
 def resolve_solver_dtype(name) -> jnp.dtype:
     """Map the ``solver_dtype`` config key to a device dtype.
 
-    float32 (default) is the TPU-native engine precision, verified against
+    float32 (default) is the device engine precision, verified against
     the f64 CPU twin at <=1% final-cost parity with precision=HIGHEST
     matmuls.  float64 is the escape hatch matching Ceres' native doubles
-    (SURVEY.md §7 hard part (b)): XLA:TPU emulates f64 (slow but exact),
-    so a dataset that ever broke f32 parity can still be solved on device.
+    (SURVEY.md §7 hard part (b)): slower on the device but exact, so a
+    dataset that ever broke f32 parity can still be solved on device.
     Requesting float64 enables jax's x64 mode process-wide (must happen
     before the arrays are created; jax.config.update handles it live).
     """

@@ -9,7 +9,7 @@ spectral descriptor, trained contrastively on synthetic worlds, scoring
 scan pairs on the same [0, 1] surface as the hand descriptor
 (loop_closure/learned.py) and the same ``lc_match_threshold`` decision.
 
-Architecture (TPU-idiomatic, fixed shapes):
+Architecture (fixed shapes):
 - polar occupancy histogram [RANGE_BINS, THETA_BINS] (shared with
   learned.scan_descriptor);
 - |rFFT| over the theta axis -> rotation of the scan is a circular shift
@@ -101,7 +101,8 @@ def embedding_match_score(params: dict, points_a, mask_a,
     the gate into a no-op)."""
     za = embed(params, points_a, mask_a)
     zb = embed(params, points_b, mask_b)
-    raw = 0.5 * (jnp.dot(za, zb) + 1.0)
+    raw = 0.5 * (jnp.dot(za, zb, precision=jax.lax.Precision.HIGHEST)
+                 + 1.0)
     calib = params.get("calib", jnp.asarray(0.5, jnp.float32))
     # Piecewise-affine monotone remap fixing three anchors: 0 -> 0,
     # calib -> 0.5, 1 -> 1 (a self-pair still scores exactly 1).

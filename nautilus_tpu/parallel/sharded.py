@@ -2,7 +2,7 @@
 
 The reference is a single-process CPU program (SURVEY.md §2c); its only
 intra-solve parallelism is OpenMP loops inside residual evaluation.  The
-TPU-native scaling story shards the *factor dimension* — the pose-pair
+multi-device scaling story here shards the *factor dimension* — the pose-pair
 correspondence lists, odometry factors, and HITL participations — across a
 ``jax.sharding.Mesh`` axis:
 

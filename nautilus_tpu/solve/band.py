@@ -6,11 +6,11 @@ solver.cc:321-333), so H is block-banded with 3x3 blocks and block
 half-bandwidth w.  This module factors and solves the damped system
 directly in band form:
 
-- memory O(N w) instead of O(N^2): the dense-H wall (~8000 poses on a
-  16 GB chip) disappears — 100k+ pose graphs fit easily;
+- memory O(N w) instead of O(N^2): the dense-H wall (~3 live (3N)^2 f32
+  copies) disappears — 100k+ pose graphs fit easily;
 - the LM while-loop carry shrinks from a [3N, 3N] dense H (whose
-  per-iteration copies dominated the round-2 profile after assembly was
-  fixed, benchmarks/PROFILE.md) to [w+1, N, 3, 3] band blocks;
+  per-iteration copies dominated an earlier profile) to [w+1, N, 3, 3]
+  band blocks;
 - factorization work drops from O(N^3) dense Cholesky to O(N s^2) block
   tridiagonal Cholesky.
 
@@ -36,7 +36,7 @@ B_k), factored by a lax.scan of Cholesky + triangular solves:
   L_0 L_0^T = A_0;   C_k = B_k L_{k-1}^{-T};   L_k L_k^T = A_k - C_k C_k^T
 
 followed by forward/backward substitution scans.  All per-step ops are
-small dense matmuls/factorizations — MXU-friendly, no scatters.
+small dense matmuls/factorizations — no scatters.
 """
 
 from __future__ import annotations
@@ -363,11 +363,11 @@ def cr_solve_tridiag(fac: CRFactorization, r):
     return x[:K0]
 
 
-# Below this node count the scan and CR backends are within dispatch
-# noise of each other on device and the scan's smaller program wins by
-# default; above it, block cyclic reduction's log-depth factorization
-# pulls ahead of the sequential scan (N=5000: 27.5 vs 30.2 ms, N=20000:
-# 37.8 vs 51.3 ms — benchmarks/logs/superblock-20000-fine.log).
+# Below this node count the sequential scan backend is used; above it,
+# block cyclic reduction's log-depth factorization.  The crossover was
+# measured on an earlier accelerator and has not been measured on the H100
+# yet: the band-scan question of ROADMAP.md section 1 (core solve layers)
+# re-decides it.
 CR_MIN_NODES = 2000
 
 

@@ -3,7 +3,7 @@
 Replaces the reference's util/timer.h (FunctionTimer prints wall ms on
 destruction, timer.cc:79-90; CumulativeFunctionTimer prints mean at exit,
 timer.cc:96-113) with context managers, and adds jax.profiler integration
-for device traces (the TPU-side analog of RDTSC, timer.h:30-147).
+for device traces (the device-side analog of RDTSC, timer.h:30-147).
 """
 
 from __future__ import annotations
@@ -93,7 +93,7 @@ class RateLoop:
 
 @contextlib.contextmanager
 def device_trace(name: str):
-    """jax.profiler annotation so host spans show up in TPU traces."""
+    """jax.profiler annotation so host spans show up in device traces."""
     import jax.profiler
     with jax.profiler.TraceAnnotation(name):
         yield

@@ -5,7 +5,7 @@ The reference publishes 7 rviz topics every LM iteration
 correspondences, auto_lc_scans, covariances} — reference
 src/visualization/solver_vis_ros.cc:114-127, redrawn from a
 ceres::IterationCallback, solver_vis.h:18-22).  Per-iteration host
-callbacks would serialize the TPU loop, so this engine snapshots at window
+callbacks would serialize the device loop, so this engine snapshots at window
 granularity (documented deviation; the data content matches the topics):
 
 - ``SolverVisualizer``: abstract interface (mirrors solver_vis.h:12-43).

@@ -373,7 +373,7 @@ def test_inverse_node_columns_cr_matches_scan():
 
 def test_band_plan_auto_resolution():
     """method='auto' picks the scan below CR_MIN_NODES and block cyclic
-    reduction above (device A/B: benchmarks/logs/superblock-20000-fine.log);
+    reduction above (benchmarks/superblock_sweep.py runs the device A/B);
     superblock=None picks the per-backend measured best; explicit values
     pass through untouched."""
     from nautilus_tpu.solve.band import CR_MIN_NODES, resolve_band_plan

@@ -73,8 +73,8 @@ def test_gauge_respected(setup):
 
 def test_full_sweep_dense_vs_cg_agreement():
     """Whole growing-window solve through the Solver with each linear
-    solver; final costs must agree (VERDICT r1 item 7 suite-scale anchor —
-    the N=2000-5000 points live in benchmarks/LARGE_N.md)."""
+    solver; final costs must agree (the suite-scale anchor;
+    benchmarks/large_n.py runs N=2000-5000 on the device)."""
     cfg = load_config_text(CFG)
     final = {}
     for kind in ("dense", "cg"):
@@ -177,7 +177,8 @@ class TestBandPreconditioner:
         # Measured ~2x fewer inner iterations (59 vs 117 on this
         # fixture); each remaining iteration also halves the dominant
         # matvec work.  Whether the added band-solve latency pays for
-        # itself ON DEVICE is the relay-return A/B's question.
+        # itself ON DEVICE is benchmarks/cg_band_precond_bench.py's
+        # question.
         assert it_band < 0.7 * it_jacobi, (it_band, it_jacobi)
 
     def test_solver_auto_uses_band_precond_when_eligible(self):

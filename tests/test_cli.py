@@ -88,7 +88,7 @@ def test_missing_config_keys_fail_fast(tmp_path):
 def test_multichip_devices_flag_matches_single_device(tmp_path):
     """--devices 8 routes the solve through the factor-sharded sweep on
     the virtual CPU mesh and produces the same poses as single-device
-    (VERDICT r4 item 3: multi-chip reachable from the product surface)."""
+    (multi-device reachable from the product surface)."""
     cfg = _write_cfg(tmp_path, n=8)
     rc = cli.main(["--config_file", str(cfg), "--synthetic", "room",
                    "--write", "--quiet"])

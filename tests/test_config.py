@@ -40,6 +40,20 @@ def test_dofile_include_and_override():
     assert cfg.lidar_topic == "/Cobot/Laser"
 
 
+def test_dofile_absolute_path(tmp_path):
+    """A config outside config/ can include the defaults by absolute path
+    (chip_smoke.py writes its run config next to its bag)."""
+    cfg_file = tmp_path / "run.lua"
+    cfg_file.write_text(
+        f'dofile("{CONFIG_DIR / "default_config.lua"}")\n'
+        'pose_number=1000\n'
+        'auto_lc=true\n')
+    cfg = load_config(cfg_file)
+    assert cfg.pose_number == 1000
+    assert cfg.auto_lc is True
+    assert cfg.outlier_threshold == 0.25
+
+
 def test_require_include():
     cfg = load_config(CONFIG_DIR / "turtlebot_config.lua")
     assert cfg.pose_number == 1000

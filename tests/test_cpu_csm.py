@@ -1,4 +1,4 @@
-"""CPU CSM twin (baseline/cpu_csm.py) parity with the TPU engine.
+"""CPU CSM twin (baseline/cpu_csm.py) parity with the device engine.
 
 The CPU twin is bench.py's scan-match baseline; it must produce the same
 scores and transforms so the reported speedup compares identical work."""
@@ -70,7 +70,7 @@ def test_cpu_batch_matches_tpu_batch():
 
 
 def test_rotation_center_cpu():
-    """The CPU twin honors the seeded rotation window like the TPU engine."""
+    """The CPU twin honors the seeded rotation window like the device engine."""
     world = make_world("office")
     pose_b = np.array([1.0, 2.0, 0.3])
     true_t = np.array([0.3, -0.2, np.pi * 0.95])
@@ -90,7 +90,7 @@ def test_rotation_center_cpu():
 
 def test_coarse_f32_escape_hatch_parity():
     """CSMParams(coarse_f32=True) keeps the correlation operands f32
-    (ADVICE r3: bf16 raster counts are exact only to 256/cell); on a
+    (bf16 raster counts are exact only to 256/cell); on a
     normal scan both precisions must land on the same transform."""
     world = make_world("office")
     pose_b = np.array([1.0, 2.0, 0.3])

@@ -58,7 +58,7 @@ def test_analytic_jacobians_match_autodiff(rng):
 
 
 def test_engines_cost_parity():
-    """TPU-architecture engine and CPU f64 engine agree on final cost <=1%."""
+    """Device engine and CPU f64 engine agree on final cost <=1%."""
     state, _ = make_problem(num_nodes=10, world_kind="room", num_beams=360,
                             seed=11, odom_noise_trans=0.02,
                             odom_noise_rot=0.01)

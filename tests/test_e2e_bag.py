@@ -6,7 +6,7 @@ generated multi-chunk bag: native reader -> ingest cache -> preprocess ->
 growing-window solve -> pose write -> map vectorization, for both chunk
 compressions — then pin that the CLI plumbing is data-transparent by
 solving the same bag through the direct in-memory path (pure-Python
-reader, no cache) and asserting final-cost parity (VERDICT r3 item 3).
+reader, no cache) and asserting final-cost parity.
 
 The default-suite bags are moderate (fast on the CPU backend); the
 GDC-scale (1000-pose, 720-beam) lane runs ingest here and the full solve

@@ -1,8 +1,8 @@
 """float64 device-solve escape hatch (SURVEY.md §7 hard part (b)).
 
-Ceres optimizes in doubles; the TPU engine defaults to f32 (+HIGHEST
+Ceres optimizes in doubles; the device engine defaults to f32 (+HIGHEST
 matmuls) and holds <=1% parity.  ``solver_dtype="float64"`` runs the whole
-device program in f64 (XLA-emulated on TPU) for any dataset that ever
+device program in f64 (slower on the device) for any dataset that ever
 breaks f32 parity.  These tests pin the plumbing and the parity claim.
 """
 

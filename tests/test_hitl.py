@@ -146,7 +146,7 @@ class TestPrewarm:
     def test_prewarm_leaves_state_untouched_and_matches_shapes(self):
         """prewarm_hitl compiles on a throwaway copy: the real state is
         unchanged, and the real callback afterwards produces the same
-        result as without prewarm (VERDICT r4 item 7)."""
+        result as without prewarm."""
         from nautilus_tpu.solve.hitl import (HitlSlamInputMsg,
                                              hitl_callback, prewarm_hitl)
         from nautilus_tpu.solve.solver import Solver
